@@ -154,7 +154,7 @@ def run_showdown(targets, methods, seeds, iters_scale=1.0, out_path=None,
     ``resume`` (default), an existing artifact at ``out_path`` is loaded
     and ok cells are skipped — so the grid can be driven one
     (target, method) at a time in separate processes and survive device
-    wedges without losing finished cells."""
+    faults without losing finished cells."""
     LOGZ_TRUE["many-well"] = quadrature_logz_many_well()
     out = {
         "protocol": {

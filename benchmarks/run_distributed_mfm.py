@@ -2,7 +2,7 @@
 
 Beyond seed replication (run_distributed_seeds.py): here a SINGLE MFM
 training run is data-parallel across processes — the chain ensemble shards
-over a global mesh that spans every process's devices (DCN analogue), flow
+over a global mesh that spans every process's devices, flow
 parameters stay replicated, and the FM-loss gradient reduction crosses the
 process boundary as the psum XLA inserts. Every process executes the same
 jitted program (single-program multiple-controller).
@@ -11,8 +11,7 @@ Run (two local processes, virtual CPU devices):
 
     python benchmarks/run_distributed_mfm.py
 
-On a real multi-slice TPU deployment, drop --cpu-devices and raise the
-sizes; the script is topology-agnostic.
+This stays a CPU demo: on a GPU host one process drives every card.
 """
 
 import argparse
@@ -93,7 +92,7 @@ def worker(args):
         )
 
     class ChunkCollector:
-        """DCN-aware chunk logging demo: every controller COLLECTS (metrics
+        """Multi-process-aware chunk logging demo: every controller COLLECTS (metrics
         are replicated, so this is free), and cross-controller identity is
         asserted via the digest below; persistent sinks stay primary-only
         (utils.logging.MetricLogger default under process_count > 1)."""

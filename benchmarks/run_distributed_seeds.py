@@ -1,10 +1,9 @@
-"""Multi-process (DCN) seed-replication demo & runbook.
+"""Multi-process seed-replication demo & runbook (CPU devices, gloo).
 
-Each process stands in for one TPU slice: it trains its strided share of
-the seed list locally (the reference's 10-seed protocol,
-/root/reference/multi_modal.py:118-131), then one tiny all-gather moves the
-per-seed metric rows across the DCN so every process prints the identical
-mean ± 1.96σ aggregate.
+Each process trains its strided share of the seed list locally (the
+reference's 10-seed protocol, /root/reference/multi_modal.py:118-131), then
+one tiny all-gather moves the per-seed metric rows across processes so
+every process prints the identical mean ± 1.96σ aggregate.
 
 Run (two local processes, virtual CPU devices):
 
@@ -13,8 +12,7 @@ Run (two local processes, virtual CPU devices):
     python benchmarks/run_distributed_seeds.py --process-id 0 --num-processes 2
     python benchmarks/run_distributed_seeds.py --process-id 1 --num-processes 2
 
-On a real multi-slice TPU deployment, drop --cpu-devices (jax.distributed
-auto-detects the topology from the environment) and raise the config sizes.
+This stays a CPU demo: on a GPU host one process drives every card.
 """
 
 import argparse
@@ -118,7 +116,7 @@ def main():
     p.add_argument("--num-processes", type=int, default=2)
     p.add_argument("--coordinator", default="localhost:12987")
     p.add_argument("--cpu-devices", type=int, default=2,
-                   help="virtual CPU devices per process (0 = real TPU topology)")
+                   help="virtual CPU devices per process")
     p.add_argument("--num-seeds", type=int, default=4)
     p.add_argument("--learning-iter", type=int, default=30)
     args = p.parse_args()

@@ -1,8 +1,8 @@
-"""mfm_tpu: a TPU-native Markovian Flow Matching framework.
+"""mfm_tpu: a Markovian Flow Matching framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 ``albcab/mfm`` repository (MFM: Accelerating MCMC with Continuous Normalizing
-Flows). Everything is built batch-first for the TPU MXU, runs training loops
+Flows). Everything is built batch-first for an accelerator, runs training loops
 on-device with ``lax.scan``, and scales chain ensembles over a
 ``jax.sharding.Mesh``.
 
@@ -16,7 +16,7 @@ Layout
 - ``adaptation``   cross-chain / ensemble-chain adaptation loops (ATESS, MSC)
 - ``vi``           SVGD + coin-SVGD, COCOB optimizer
 - ``sbi``          simulation-based inference scaffolding (SNPE-A)
-- ``ops``          Pallas TPU kernels and their portable fallbacks
+- ``ops``          Pallas (Triton) GPU kernel for the pairwise metrics
 - ``diagnostics``  Stein discrepancy, MMD, autocorrelation, ESS
 - ``parallel``     mesh / sharding utilities
 - ``drivers``      end-to-end orchestrators (MFM training, SMC runs, eval)

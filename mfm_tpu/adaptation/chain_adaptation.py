@@ -9,13 +9,13 @@ Parity with /root/reference/bblackjax/adaptation/chain_adaptation.py:
   between batches every iteration, and the batch whose data just trained the
   incoming parameters skips its move (chain_adaptation.py:72-85).
 
-TPU-first redesign: the reference's multi-device story is a pluggable
+Mesh redesign: the reference's multi-device story is a pluggable
 ``batch_fn=jax.pmap``. Here the ensemble axis is a mesh axis:
 
 - single-device: batches live on a leading array axis, rotation is
   ``jnp.roll``, the per-batch kernel is ``vmap``-lifted;
 - multi-chip: wrap the update in ``shard_map`` over the ``ensemble`` mesh
-  axis and the rotation lowers to ``lax.ppermute`` — one ICI hop per step
+  axis and the rotation lowers to ``lax.ppermute`` — one device-to-device hop per step
   (see mfm_tpu.parallel and tests/test_adaptation.py).
 """
 
@@ -101,7 +101,7 @@ def parallel_eca(
     States lead with (num_batch, batch_size, ...); params lead with
     (num_batch, ...). With ``mesh`` given, the update runs under
     ``shard_map`` over the ensemble mesh axis and rotation is a ppermute
-    ring over ICI.
+    ring over the devices.
     """
 
     def init(initial_states: NamedTuple) -> AdaptState:

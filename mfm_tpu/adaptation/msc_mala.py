@@ -5,7 +5,7 @@ fresh positions by pushing reference noise through the current flow, runs
 ``num_mala_samples`` MALA steps from them, and climbs the flow objective on
 the resulting chain positions.
 
-TPU-first: the fresh draw + MALA refinement is ensemble-batched — the flow
+Batched: the fresh draw + MALA refinement is ensemble-batched — the flow
 push-forward is one batched transport, the inner MALA loop is a scanned
 ensemble kernel.
 """

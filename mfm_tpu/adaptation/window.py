@@ -2,7 +2,7 @@
 ensemble-batched.
 
 Part of the BASELINE north star ("window adaptation" for the MCMC layer);
-absent from the vendored reference fork. TPU-first twist: statistics pool
+absent from the vendored reference fork. Ensemble twist: statistics pool
 across the whole chain ensemble — the dual-averaging update consumes the
 *mean* acceptance of all B chains per step, and the mass matrix is a Welford
 estimate over (iters x chains) positions — so adaptation signal scales with

@@ -180,8 +180,8 @@ def run_seeds_vmapped(target, cfg, seeds, args):
     """All seeds trained as one vmapped program; per-seed evaluation."""
 
     from mfm_tpu.drivers import run_mfm_seeds
-    from mfm_tpu.drivers.mfm import sample_flow_parts
-    from mfm_tpu.flows import NON_LINEARITIES, VectorFieldNet, make_transport
+    from mfm_tpu.drivers.mfm import field_net, sample_flow_parts
+    from mfm_tpu.flows import make_transport
     from mfm_tpu.targets import make_ref_dist
 
     sweep = run_mfm_seeds(target, cfg, seeds)
@@ -199,39 +199,9 @@ def run_seeds_vmapped(target, cfg, seeds, args):
 
     rows, rows_exact = [], []
     for i, seed in enumerate(seeds):
-        net = VectorFieldNet(
-            fourier_freqs=sweep.fourier[i],
-            hidden_x=tuple(cfg.hidden_x),
-            hidden_t=tuple(cfg.hidden_t),
-            hidden_xt=tuple(cfg.hidden_xt),
-            act=NON_LINEARITIES[cfg.non_linearity],
-            score_fn=target.score,
-            score_clip=cfg.score_clip,
-            precision=(
-                jax.lax.Precision.HIGHEST
-                if cfg.field_precision == "highest"
-                else None
-            ),
-        )
-        # keep the eval transport consistent with the trained one when the
-        # fused Pallas apply is engaged (same gating as drivers/mfm.build_mfm
-        # — VERDICT r2 weak-item 7: bypassing it here would evaluate a
-        # different function than the one trained under pallas_field=True)
-        transport_apply = net.apply
-        if cfg.pallas_field and cfg.field_precision == "highest":
-            from mfm_tpu.ops.field_pallas import (
-                fits_in_vmem,
-                make_pallas_field_apply,
-            )
-
-            params_probe = jax.tree_util.tree_map(lambda p: p[i], sweep.params)
-            if cfg.non_linearity in ("relu", "tanh") and fits_in_vmem(params_probe):
-                transport_apply = make_pallas_field_apply(
-                    params_probe, sweep.fourier[i], cfg.non_linearity,
-                    score_fn=target.score, score_clip=cfg.score_clip,
-                )
+        net = field_net(target, cfg, sweep.fourier[i])
         transport = make_transport(
-            transport_apply, divergence=cfg.divergence,
+            net.apply, divergence=cfg.divergence,
             n_steps=cfg.eval_ode_steps or cfg.ode_steps,
             method=cfg.ode_method,
             num_probes=cfg.eval_hutchinson_probes,
@@ -252,6 +222,9 @@ def run_seeds_vmapped(target, cfg, seeds, args):
 
 
 def main(argv=None):
+    from mfm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
         level=logging.INFO,
@@ -297,11 +270,9 @@ def main(argv=None):
     p.add_argument("--pallas-metrics", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="evaluate KSD/MMD with the fused Pallas pairwise "
-                        "kernels (2-5x faster at the 12.8k eval size on "
-                        "v5e; coarser f32 accumulation — see drivers/eval). "
-                        "Default: auto — ON on TPU, OFF elsewhere; "
-                        "--no-pallas-metrics forces the XLA path for "
-                        "near-floor KSD comparisons")
+                        "kernel (GPU only; see drivers/eval). Default: "
+                        "auto — ON on a GPU below d=1024, OFF elsewhere; "
+                        "--no-pallas-metrics forces the XLA path")
     p.add_argument("--plots", action="store_true",
                    help="save the reference's end-of-run figure set (pair "
                         "scatters, phi-four fields, 2-D flow progression) "

@@ -30,12 +30,6 @@ class MFMConfig:
     # |d/dx log p| ~ exp(-v) in the neck) need True or tail latents diverge
     # through the transport.
     clip_score: Optional[bool] = None
-    # fused weight-resident Pallas apply for the CNF transport (mid-size
-    # fields whose weights fit VMEM; relu/tanh). Falls back to XLA when the
-    # guard fails, or when field_precision != 'highest' (the kernel computes
-    # in exact f32, which would diverge from a bf16-trained field). See
-    # ops/field_pallas.py.
-    pallas_field: bool = False
 
     # flow matching (reference multi_modal.py:155-167)
     sigma: float = 1e-4
@@ -55,7 +49,9 @@ class MFMConfig:
     divergence_mode: Optional[str] = None
     ode_steps: int = 24
     ode_method: str = "rk4"
-    field_precision: str = "highest"  # 'default' = bf16 MXU (2x less HBM traffic)
+    # 'highest' = full-f32 field matmuls; 'default' = the backend's default
+    # precision (TF32 on an NVIDIA GPU's tensor cores)
+    field_precision: str = "highest"
     # evaluation-time transport overrides (final sampling + IS correction).
     # IS weights exponentiate the Hutchinson logdet noise, so more/better
     # probes at eval time directly raise the IS effective sample size at
@@ -215,11 +211,10 @@ def preset(example: str, **overrides) -> MFMConfig:
         cfg.lim = (-1.6, 1.6)
         cfg.learning_iter = 10_000
         cfg.chunk_size = 1000
-        # bf16-multiply/f32-accumulate field: full 10k-iter run 11.0 s vs
-        # 26.2 s f32-exact with equal-or-better KSD (RESULTS.md round 3 —
-        # overturns the round-2 "11x slower" entry, which no longer
-        # reproduces; per-component dissection there). --set
-        # field_precision=highest restores exact-f32 matmuls.
+        # reduced-precision field matmuls: equal-or-better KSD than exact
+        # f32 at matched seeds on the earlier accelerator (RESULTS.md);
+        # on the H100 'default' is TF32. --set field_precision=highest
+        # restores exact-f32 matmuls.
         cfg.field_precision = "default"
     elif example == "pines":
         cfg.dim = 1600
@@ -235,18 +230,18 @@ def preset(example: str, **overrides) -> MFMConfig:
         # every pines metric (RESULTS.md); pass ref_dist='stdgauss' for
         # strict reference parity
         cfg.ref_dist = "prior"
-        # bf16-multiply/f32-accumulate field: 2.5x faster 10k-iter training
-        # with statistically identical quality (RESULTS.md round 2:
-        # KSD-U 0.081 vs 0.088, same logpdf/acceptance). The flow-MH
-        # correction stays exact against the bf16-defined flow since forward
-        # and inverse use the identical function. --set
+        # reduced-precision field matmuls: statistically identical quality
+        # to exact f32 on the earlier accelerator (KSD-U 0.081 vs 0.088,
+        # same logpdf/acceptance); on the H100 'default' is TF32. The
+        # flow-MH correction stays exact against the reduced-precision flow
+        # since forward and inverse use the identical function. --set
         # field_precision=highest restores exact-f32 matmuls.
         cfg.field_precision = "default"
         # Rademacher eval probes: at d=1600 the 1-probe *Gaussian*
         # Hutchinson logdet carries ~6.6 nats of per-sample noise, which
         # Jensen-tilts any exponentiated use of the logdet (measured:
         # flow-SMC logZ biased +1.8 nats vs the converged plain-SMC
-        # estimate; RESULTS_raw_pines_logz_probe_bias.json). Rademacher
+        # estimate; RESULTS.md). Rademacher
         # probes zero the diagonal variance term and recover the unbiased
         # answer at identical cost.
         cfg.eval_probe_dist = "rademacher"

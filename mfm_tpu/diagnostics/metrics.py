@@ -2,7 +2,7 @@
 autocorrelation, effective sample size.
 
 Parity with the reference diagnostics (/root/reference/mcmc_utils.py:28-165),
-redesigned for the MXU:
+redesigned as GEMMs:
 
 The reference evaluates the O(T^2) pairwise sums elementwise under nested
 vmaps row-chunked by ``lax.map`` (mcmc_utils.py:77-85). Here every pairwise
@@ -14,8 +14,8 @@ GEMMs —
     sx.sy              = one score Gram
 
 — so the hot loop is five matmuls per row tile plus fused elementwise math,
-and memory stays bounded at tile x T. This is the formulation the optional
-Pallas kernels in ``mfm_tpu.ops`` accelerate further.
+and memory stays bounded at tile x T. The fused Pallas kernel in ``mfm_tpu.ops``
+computes the same sums in parallel tiles on a GPU.
 """
 
 from functools import partial

@@ -202,7 +202,6 @@ def run_dds(
     config.model.exp_dds = True
     config.model.stl = False
     config.model.detach_stl_drift = False
-    config.model.tpu = True  # we ARE the TPU framework
     config.trainer.log_every_n_epochs = max(cfg.learning_iter // 10, 1)
     config.trainer.learning_rate = cfg.learning_rate
     config.trainer.epochs = cfg.learning_iter

@@ -3,8 +3,8 @@ on-device flow-matching training, adaptive tempering, final importance-
 corrected sampling.
 
 Algorithmic parity with the reference orchestrator
-(/root/reference/exe_flow_matching.py:321-575) with the defining TPU-first
-change (SURVEY.md section 7 item 1): the reference drives training from a
+(/root/reference/exe_flow_matching.py:321-575) with the defining
+accelerator-side change (SURVEY.md section 7 item 1): the reference drives training from a
 host Python loop with a device round-trip every iteration (:432-449); here
 the entire loop body — kernel interleave (lax.cond on the step counter),
 FM gradient step, ESS-bisection tempering — is a single scanned, jitted
@@ -116,24 +116,13 @@ class MFMPieces(NamedTuple):
     ref_dist: Target
     loss_fn: Callable
     fourier: jax.Array
-    # the apply actually used by the transport (the fused Pallas kernel when
-    # cfg.pallas_field engaged; == apply_fn otherwise).
-    transport_apply: Callable = None
 
 
-def build_mfm(target: Target, cfg: MFMConfig, key: jax.Array) -> MFMPieces:
-    """Construct the jitted pieces of an MFM run. Traceable — may be called
-    inside a vmapped trace (the multi-seed driver does) since the network's
-    Fourier frequencies are ordinary traced values."""
-
+def field_net(target: Target, cfg: MFMConfig, fourier: jax.Array):
+    """The configured CNF velocity field for ``target``."""
     from mfm_tpu.flows.vector_field import NON_LINEARITIES, VectorFieldNet
 
-    key_net, _ = jax.random.split(key)
-    key_freq, key_init = jax.random.split(key_net)
-    use_real_samples = cfg.mcmc_per_flow_steps < 0
-
-    fourier = cfg.fourier_std * jax.random.normal(key_freq, (cfg.fourier_dim,))
-    net = VectorFieldNet(
+    return VectorFieldNet(
         fourier_freqs=fourier,
         hidden_x=tuple(cfg.hidden_x),
         hidden_t=tuple(cfg.hidden_t),
@@ -147,30 +136,23 @@ def build_mfm(target: Target, cfg: MFMConfig, key: jax.Array) -> MFMPieces:
             else None
         ),
     )
+
+
+def build_mfm(target: Target, cfg: MFMConfig, key: jax.Array) -> MFMPieces:
+    """Construct the jitted pieces of an MFM run. Traceable — may be called
+    inside a vmapped trace (the multi-seed driver does) since the network's
+    Fourier frequencies are ordinary traced values."""
+
+    key_net, _ = jax.random.split(key)
+    key_freq, key_init = jax.random.split(key_net)
+    use_real_samples = cfg.mcmc_per_flow_steps < 0
+
+    fourier = cfg.fourier_std * jax.random.normal(key_freq, (cfg.fourier_dim,))
+    net = field_net(target, cfg, fourier)
     apply_fn = net.apply
-    params = net.init(key_init, jnp.zeros((1, cfg.dim)), jnp.zeros((1,)))
-
-    # transport-path apply: optionally the fused weight-resident Pallas
-    # kernel (ops/field_pallas.py) for VMEM-sized fields
-    transport_apply = apply_fn
-    if cfg.pallas_field:
-        from mfm_tpu.ops.field_pallas import fits_in_vmem, make_pallas_field_apply
-
-        # the Pallas kernel always computes in exact f32; engaging it under a
-        # bf16 training field (field_precision='default') would make the
-        # transport sample a different function than the one trained, so the
-        # fused path requires 'highest'
-        if (
-            cfg.field_precision == "highest"
-            and cfg.non_linearity in ("relu", "tanh")
-            and fits_in_vmem(params)
-        ):
-            transport_apply = make_pallas_field_apply(
-                params, fourier, cfg.non_linearity,
-                score_fn=target.score, score_clip=cfg.score_clip,
-            )
+    params = net.init(key_init, cfg.dim)
     transport = make_transport(
-        transport_apply, divergence=cfg.divergence, n_steps=cfg.ode_steps,
+        apply_fn, divergence=cfg.divergence, n_steps=cfg.ode_steps,
         method=cfg.ode_method,
     )
     if cfg.ref_dist == "prior":
@@ -390,8 +372,21 @@ def build_mfm(target: Target, cfg: MFMConfig, key: jax.Array) -> MFMPieces:
         ref_dist=ref_dist,
         loss_fn=loss_fn,
         fourier=fourier,
-        transport_apply=transport_apply,
     )
+
+
+def keep_chains_sharded(step_fn: Callable, chain_sharding) -> Callable:
+    """``step_fn`` whose output chain state keeps ``chain_sharding`` (a
+    pytree of shardings shaped like ``MFMCarry.chain``). Without the
+    constraint XLA's sharding propagation is free to replicate the whole
+    ensemble on every device, which four H100s did."""
+
+    def step(carry: MFMCarry, xs):
+        carry, metrics = step_fn(carry, xs)
+        chain = jax.lax.with_sharding_constraint(carry.chain, chain_sharding)
+        return carry._replace(chain=chain), metrics
+
+    return step
 
 
 def run_mfm(
@@ -434,10 +429,13 @@ def run_mfm(
             wf=replicate(carry.wf, mesh),
             inv_mass=replicate(carry.inv_mass, mesh),
         )
+        step_fn = keep_chains_sharded(
+            step_fn, jax.tree_util.tree_map(lambda a: a.sharding, carry.chain)
+        )
 
     # the incoming carry is dead after each chunk: donating it lets XLA
     # reuse the chain/optimizer buffers in place instead of allocating a
-    # fresh output set per chunk (HBM traffic + footprint)
+    # fresh output set per chunk (device-memory traffic + footprint)
     @functools.partial(jax.jit, donate_argnums=0)
     def run_chunk(carry, keys, counts):
         return lax.scan(step_fn, carry, (keys, counts))
@@ -534,7 +532,7 @@ def run_mfm(
         or cfg.eval_ode_steps is not None
     ):
         transport = make_transport(
-            pieces.transport_apply or apply_fn,
+            apply_fn,
             divergence=cfg.divergence,
             n_steps=cfg.eval_ode_steps or cfg.ode_steps,
             method=cfg.ode_method,

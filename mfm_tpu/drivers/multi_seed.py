@@ -1,12 +1,12 @@
 """Vectorized multi-seed MFM replication.
 
 The reference replicates every benchmark over 10 seeds with a host loop
-(multi_modal.py:118-131), paying full compile + run time per seed. On TPU
+(multi_modal.py:118-131), paying full compile + run time per seed. On an accelerator
 the seeds are embarrassingly parallel *within one program*: this driver
 vmaps the entire training run — per-seed network init (including per-seed
 Fourier features), chain states, tempering levels and optimizer states —
 so the whole replication is one scanned, jitted computation whose batched
-GEMMs fill the MXU far better than any single small-seed run.
+GEMMs fill the device far better than any single small-seed run.
 
 The per-seed pipeline is exactly ``drivers.mfm.build_mfm`` (shared code, no
 drift): build_mfm is traceable, so it is simply called inside the vmapped

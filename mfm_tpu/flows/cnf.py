@@ -2,7 +2,7 @@
 
 Behavioral parity with the reference ``transform_and_logdet`` /
 ``inverse_and_logdet`` (/root/reference/exe_flow_matching.py:206-242), with
-two TPU-first changes:
+two batched-execution changes:
 
 1. **Whole-ensemble transport.** One ODE solve carries the full (B, d)
    batch; every integrator stage is a single batched vector-field GEMM pass
@@ -33,7 +33,7 @@ Divergence estimators (reference exe_flow_matching.py:211-217):
                  targets a tilted surrogate whose normalizer is off by
                  log E[exp(Delta)]. Measured on the d=32 many-well at the
                  preset 24 RK4 steps, Delta is ~+2e-4 nats with the O(h^4)
-                 grid decay (RESULTS_raw_many_well_logz_bias.json) — real
+                 grid decay (RESULTS.md) — real
                  but negligible at benchmark grids, and in particular NOT
                  the source of that target's -1.2-nat flow-SMC logZ bias
                  (RESULTS.md round 5). ``exact_disc`` removes it
@@ -55,9 +55,8 @@ def exact_divergence(apply_fn: Callable) -> Callable:
 
     Same O(d) forward-pass count as the reference's per-sample ``jacfwd``
     trace (exe_flow_matching.py:215-217) but each pass is one (B, d) batched
-    JVP — whole-ensemble GEMMs on the MXU instead of B vmapped per-sample
-    Jacobians, and no (B, d, d) Jacobian materialization. Also composes with
-    custom-JVP transports (the fused Pallas field).
+    JVP — whole-ensemble GEMMs instead of B vmapped per-sample Jacobians,
+    and no (B, d, d) Jacobian materialization.
 
     ASSUMES ``apply_fn`` is batch-decoupled: sample b's output depends only
     on sample b's input (true for every vector field here — they are

@@ -8,7 +8,7 @@ in-repo). Unlike the CNF transport (flows/cnf.py), a coupling flow needs no
 ODE integration and its density is exact in both directions — which is what
 FAB's importance weights require at every training step.
 
-TPU-first design decisions:
+Design decisions:
 
 - batch-first throughout: one coupling layer is two or three ``(B, h)``
   GEMMs for the whole ensemble; the layer stack is a Python loop over a
@@ -24,11 +24,13 @@ TPU-first design decisions:
   the CNF's zero-init output heads, exe_flow_matching.py:82-85).
 """
 
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, NamedTuple, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from mfm_tpu.flows.vector_field import dense, dense_init, mlp, mlp_init
 
 _MIN_BIN = 1e-3
 _MIN_DERIV = 1e-3
@@ -144,34 +146,34 @@ def rq_spline_inverse(y, raw, n_bins: int, lo: float, hi: float):
     return jnp.where(inside, x, y), jnp.where(inside, -ld_fwd, 0.0)
 
 
-class _Conditioner(nn.Module):
+def _conditioner_init(key, hidden: Sequence[int], n_out_per_dim: int, dim: int) -> dict:
     """Masked-input MLP emitting per-dimension transform parameters.
 
     Zero-init output head -> every coupling layer starts as the identity.
     """
-
-    hidden: Sequence[int]
-    n_out_per_dim: int
-    dim: int
-
-    @nn.compact
-    def __call__(self, x_masked):
-        h = x_masked
-        for width in self.hidden:
-            h = jax.nn.gelu(nn.Dense(width)(h))
-        out = nn.Dense(
-            self.dim * self.n_out_per_dim, kernel_init=nn.initializers.zeros,
-            bias_init=nn.initializers.zeros,
-        )(h)
-        return out.reshape(out.shape[:-1] + (self.dim, self.n_out_per_dim))
+    layers = mlp_init(key, dim, hidden)
+    fan_in = hidden[-1] if hidden else dim
+    layers[f"Dense_{len(hidden)}"] = dense_init(None, fan_in, dim * n_out_per_dim)
+    return layers
 
 
-class CouplingStack(nn.Module):
+def _conditioner(layers: dict, x_masked, n_out_per_dim: int):
+    n_hidden = len(layers) - 1
+    hidden = {f"Dense_{i}": layers[f"Dense_{i}"] for i in range(n_hidden)}
+    h = mlp(hidden, x_masked, jax.nn.gelu)
+    out = dense(layers[f"Dense_{n_hidden}"], h)
+    return out.reshape(out.shape[:-1] + (x_masked.shape[-1], n_out_per_dim))
+
+
+@dataclasses.dataclass(frozen=True)
+class CouplingStack:
     """Alternating-mask coupling flow u <-> x.
 
     ``transform_type``: "real_nvp" (affine: 2 params/dim) or "spline"
     (monotone RQ: 3K-1 params/dim). ``forward`` maps base noise u -> data x
     (sampling direction); ``inverse`` maps x -> u (density direction).
+    Parameters: ``{"params": {"conditioners_i": {"Dense_j": layer}}}``,
+    plus ``an_scale`` / ``an_shift`` of shape (n_layers, dim) with act-norm.
     """
 
     dim: int
@@ -183,31 +185,34 @@ class CouplingStack(nn.Module):
     hi: float = 10.0
     act_norm: bool = False
 
-    def setup(self):
-        n_out = 2 if self.transform_type == "real_nvp" else 3 * self.n_bins - 1
-        self.conditioners = [
-            _Conditioner(self.hidden, n_out, self.dim)
-            for _ in range(self.n_layers)
-        ]
+    @property
+    def n_out(self) -> int:
+        return 2 if self.transform_type == "real_nvp" else 3 * self.n_bins - 1
+
+    def init(self, key: jax.Array) -> dict:
+        keys = jax.random.split(key, self.n_layers)
+        p = {
+            f"conditioners_{i}": _conditioner_init(
+                keys[i], self.hidden, self.n_out, self.dim
+            )
+            for i in range(self.n_layers)
+        }
         if self.act_norm:
-            self.an_scale = self.param(
-                "an_scale", nn.initializers.zeros, (self.n_layers, self.dim)
-            )
-            self.an_shift = self.param(
-                "an_shift", nn.initializers.zeros, (self.n_layers, self.dim)
-            )
+            p["an_scale"] = jnp.zeros((self.n_layers, self.dim), jnp.float32)
+            p["an_shift"] = jnp.zeros((self.n_layers, self.dim), jnp.float32)
+        return {"params": p}
 
     def _mask(self, i: int):
         par = jnp.arange(self.dim) % 2
         return jnp.where((i % 2) == 0, par, 1 - par).astype(jnp.float32)
 
-    def _layer(self, i: int, z, invert: bool):
+    def _layer(self, p: dict, i: int, z, invert: bool):
         """One coupling layer (+ optional act-norm); returns (z', logdet)."""
         m = self._mask(i)
         free = 1.0 - m
 
         def couple(z):
-            raw = self.conditioners[i](z * m)
+            raw = _conditioner(p[f"conditioners_{i}"], z * m, self.n_out)
             if self.transform_type == "real_nvp":
                 # bounded log-scale: tanh keeps |log s| <= 4 (fabjax-style
                 # stability bound for affine couplings)
@@ -218,8 +223,8 @@ class CouplingStack(nn.Module):
 
         if not invert:
             if self.act_norm:
-                z = z * jnp.exp(self.an_scale[i]) + self.an_shift[i]
-                ld_an = jnp.sum(self.an_scale[i]) * jnp.ones(z.shape[:-1])
+                z = z * jnp.exp(p["an_scale"][i]) + p["an_shift"][i]
+                ld_an = jnp.sum(p["an_scale"][i]) * jnp.ones(z.shape[:-1])
             else:
                 ld_an = jnp.zeros(z.shape[:-1])
             if self.transform_type == "real_nvp":
@@ -246,23 +251,23 @@ class CouplingStack(nn.Module):
             z = jnp.where(free > 0, x, z)
             ld = jnp.sum(free * ld_el, -1)
         if self.act_norm:
-            z = (z - self.an_shift[i]) * jnp.exp(-self.an_scale[i])
-            ld = ld - jnp.sum(self.an_scale[i])
+            z = (z - p["an_shift"][i]) * jnp.exp(-p["an_scale"][i])
+            ld = ld - jnp.sum(p["an_scale"][i])
         return z, ld
 
-    def __call__(self, u):  # forward: sampling direction
+    def forward(self, params: dict, u):  # sampling direction
         ld = jnp.zeros(u.shape[:-1])
         z = u
         for i in range(self.n_layers):
-            z, ldi = self._layer(i, z, invert=False)
+            z, ldi = self._layer(params["params"], i, z, invert=False)
             ld = ld + ldi
         return z, ld
 
-    def inverse(self, x):
+    def inverse(self, params: dict, x):
         ld = jnp.zeros(x.shape[:-1])
         z = x
         for i in reversed(range(self.n_layers)):
-            z, ldi = self._layer(i, z, invert=True)
+            z, ldi = self._layer(params["params"], i, z, invert=True)
             ld = ld + ldi
         return z, ld
 
@@ -317,13 +322,8 @@ def make_coupling_flow(
         lo=float(spline_range[0]), hi=float(spline_range[1]),
         act_norm=act_norm,
     )
-    params = module.init(key, jnp.zeros((1, dim)))
-
-    def forward(params, u):
-        return module.apply(params, u)
-
-    def inverse(params, x):
-        return module.apply(params, x, method=module.inverse)
+    params = module.init(key)
+    forward, inverse = module.forward, module.inverse
 
     def log_prob(params, x):
         u, ld = inverse(params, x)

@@ -12,7 +12,7 @@ learned CNF, parity with the reference trio
 - ``cis_refresh``       conditional importance sampling over N fresh
                         reference draws plus the kept previous pullback (:280-296)
 
-TPU-first redesign: every kernel runs the **whole ensemble through one ODE
+Batched redesign: every kernel runs the **whole ensemble through one ODE
 solve** — for CIS the (B, N) candidate grid is flattened to a single
 (B*N, d) batch so all candidates ride one transport — and accept/select is a
 batched ``where``/gather, never a per-chain ``lax.cond``. Selection by the

@@ -2,9 +2,9 @@
 
 The reference integrates with ``jax.experimental.ode.odeint`` (adaptive
 dopri5, /root/reference/exe_flow_matching.py:345-349). Adaptive stepping is
-hostile to TPU execution: data-dependent ``while_loop`` trip counts prevent
+hostile to batched accelerator execution: data-dependent ``while_loop`` trip counts prevent
 static scheduling and serialize the chain ensemble behind its slowest
-member. The TPU-native default here is a **fixed-grid** integrator
+member. The default here is a **fixed-grid** integrator
 (``lax.scan`` over a static step budget, SURVEY.md section 7 item 4) whose
 every stage is one batched vector-field evaluation for the whole ensemble.
 An adaptive RK45 (Dormand-Prince with PI step-size control) is kept as a
@@ -149,7 +149,7 @@ def odeint_dopri5(
     """Adaptive Dormand-Prince 5(4) with a PI controller; single trajectory.
 
     Matches the reference's odeint tolerances (multi_modal.py:207-209).
-    Use only for verification / CPU oracle runs; the TPU path is
+    Use only for verification / CPU oracle runs; the production path is
     :func:`odeint_grid`.
     """
     ff, yflat, unravel = _flat_fn(f, y0)

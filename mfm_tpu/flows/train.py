@@ -19,7 +19,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import traverse_util
 
 
 class TrainState(NamedTuple):
@@ -33,16 +32,15 @@ class TrainState(NamedTuple):
 def decay_mask(params) -> dict:
     """True for parameters that should be weight-decayed: everything except
     biases and *norm scales (reference decay_mask_fn, :116-127)."""
-    flat = traverse_util.flatten_dict(params)
 
-    def keep(path):
-        name = path[-1]
-        if name == "bias":
+    def keep(path, _):
+        names = [str(getattr(k, "key", k)) for k in path]
+        if names[-1] == "bias":
             return False
-        joined = "".join(str(p) for p in path).lower()
+        joined = "".join(names).lower()
         return not any(tag in joined for tag in ("layernorm", "layer_norm", "ln"))
 
-    return traverse_util.unflatten_dict({p: keep(p) for p in flat})
+    return jax.tree_util.tree_map_with_path(keep, params)
 
 
 def make_lr_schedule(
@@ -79,20 +77,19 @@ def adamw_finite(
     bumps a consecutive-failure counter (reset on success); after
     ``nonfinite_patience`` consecutive failures the NaN is propagated so
     the blow-up surfaces. The fusion story is why it is hand-written
-    (profiled on the pines step, RESULTS.md round 3):
+    (profiled on the pines step on an earlier accelerator):
 
-    - ``apply_if_finite`` compiles to an HLO conditional, and a TPU
-      conditional cannot alias operands across branches — XLA copied the
-      whole ~80 MB AdamW state through HBM every iteration (0.33 ms/iter,
-      40% of the step);
+    - ``apply_if_finite`` compiles to an HLO conditional, and that
+      conditional could not alias operands across branches — XLA copied
+      the whole ~80 MB AdamW state through device memory every iteration;
     - a select-based wrapper (``where(finite, new, old)`` per leaf) fixes
       the cond but still materializes per-tensor select fusions that read
-      both moment copies (~0.1 ms/iter);
+      both moment copies;
     - the gated-increment form ``m + f*(1-b1)*(g - m)`` needs no second
       copy at all: the whole leaf update (both moments, bias correction,
       weight decay, clip, gate) is one elementwise fusion reading
-      (m, v, g, p) and writing (m, v, u) — the same HBM traffic as plain
-      AdamW.
+      (m, v, g, p) and writing (m, v, u) — the same memory traffic as
+      plain AdamW.
     """
 
     def init_fn(params):

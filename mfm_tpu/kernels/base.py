@@ -1,10 +1,10 @@
 """Kernel protocol and shared state containers.
 
-TPU-first counterpart of the reference ``SamplingAlgorithm`` protocol
+Batched counterpart of the reference ``SamplingAlgorithm`` protocol
 (/root/reference/bblackjax/base.py:76-103). The decisive difference: kernels
 here are **ensemble kernels** — ``init`` and ``step`` act on an entire
 ``(n_chain, dim)`` batch at once, so every inner op is a large batched
-matmul / elementwise pass that XLA tiles onto the MXU/VPU. Per-chain
+matmul / elementwise pass that XLA compiles as a whole. Per-chain
 functions lifted with ``jax.vmap`` (the reference pattern,
 exe_flow_matching.py:303-314) are the slow path, not the design center.
 """

@@ -9,7 +9,7 @@ chain from the importance weights
 
 i.e. w = pi(x) / q_flow(x) for a standard-normal reference.
 
-TPU-first redesign: the (B, N+1) candidate grid flattens into one
+Batched redesign: the (B, N+1) candidate grid flattens into one
 (B*(N+1), d) flow batch — a single transport pass for the whole ensemble —
 and selection is a batched log-space categorical + gather. (The driver-level
 variant in mfm_tpu.flows.flow_mh additionally re-uses cached target values;

@@ -2,7 +2,7 @@
 
 The BASELINE north star asks for the MCMC layer to include HMC alongside
 MALA (the reference's upstream blackjax has it; the vendored fork dropped
-it). This is a TPU-first ensemble implementation: one (B, d) leapfrog
+it). This is a batched ensemble implementation: one (B, d) leapfrog
 trajectory for the whole chain block — each step is a batched score pass —
 with diagonal (or scalar) inverse mass, batched Metropolis acceptance, and
 energy-divergence flagging.

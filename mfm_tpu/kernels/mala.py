@@ -10,7 +10,7 @@ Behavioral parity with the reference MALA kernel
 - acceptance min(1, exp(E(b -> a)... )) via the energy difference, plus the
   fork's extra proposed-position / proposed-weight info (mala.py:104-113)
 
-TPU-first redesign: the whole ensemble steps at once. One batched
+Batched redesign: the whole ensemble steps at once. One batched
 ``value_and_score`` of the target per iteration (a (B, d) matmul-heavy pass
 for LGCP/phi-four), batched noise, batched row-reductions for the energies,
 and a single ``jnp.where`` accept/select — no ``lax.cond`` per chain, no

@@ -1,7 +1,7 @@
 """No-U-Turn Sampler, ensemble-batched.
 
 Part of the BASELINE north star MCMC-layer inventory (upstream blackjax has
-NUTS; the vendored reference fork dropped it). TPU-first design:
+NUTS; the vendored reference fork dropped it). Batched design:
 
 The classic recursive tree build is data-dependent control flow per chain —
 hostile to SPMD. Here the doubling recursion is **unrolled statically**
@@ -10,7 +10,7 @@ hostile to SPMD. Here the doubling recursion is **unrolled statically**
 the WHOLE (B, d) ensemble; chains whose trajectory already terminated
 (u-turn / divergence) are frozen by masks. This trades wasted masked work
 for zero dynamic control flow — the standard SIMD-NUTS bargain — and makes
-each leapfrog one fused batched score pass on the MXU/VPU.
+each leapfrog one fused batched score pass.
 
 Semantics: multinomial NUTS (Betancourt 2017) — within-subtree multinomial
 proposal sampling, biased progressive sampling across doublings, endpoint

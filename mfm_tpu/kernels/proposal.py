@@ -7,7 +7,7 @@ accept/reject, progressive uniform/biased sampling for trajectory-building
 samplers, and non-reversible slice acceptance — redesigned **vectorized**:
 every combinator acts on a (B,)-leading ensemble of proposals and resolves
 accept/reject with ``jnp.where`` masks (no per-chain ``lax.cond``), so
-kernels composed from these pieces stay single fused programs on TPU.
+kernels composed from these pieces stay single fused programs.
 
 Production consumers: ``kernels.mala`` and ``kernels.hmc`` build their MH
 accept/reject from ``proposal_from_energy_diff`` + ``static_binomial_sampling``

@@ -6,7 +6,7 @@ the pullback space of a transport map T, with bracket-shrinkage search. The
 slice function is ``log pi(T(u)) + logdet T(u) - ||m||^2 / 2`` (tess.py:42-44,
 with logdet in this repo's +log|det dT/du| convention).
 
-TPU-first redesign: the reference shrinks the bracket per chain in a scalar
+Batched redesign: the reference shrinks the bracket per chain in a scalar
 ``while_loop`` under vmap (tess.py:109-124). Here one **masked batched
 while_loop** drives the whole ensemble: every iteration evaluates the flow
 once for all B chains (one batched ODE solve / transport GEMM pass) and

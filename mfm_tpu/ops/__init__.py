@@ -11,7 +11,3 @@ __all__ = [
     "stein_disc_pallas",
     "stein_pairwise_sum",
 ]
-
-from mfm_tpu.ops.phi_four_pallas import phi_four_log_lik  # noqa: E402
-
-__all__ += ["phi_four_log_lik"]

@@ -7,7 +7,7 @@ first-class axis layout (SURVEY.md section 2.8):
 
 - ``chains``   data-parallel axis: chain/particle states (n_chain, d) are
   sharded on their leading axis; kernels are elementwise across chains so
-  stepping needs **zero** communication; FM-loss gradients reduce over ICI
+  stepping needs **zero** communication; FM-loss gradients reduce across devices
   with the psum XLA inserts for the replicated-parameter jit.
 - ``ensemble`` ensemble-chain-adaptation axis: parameter rotation between
   chain batches is a ``ppermute`` ring (mfm_tpu.adaptation).

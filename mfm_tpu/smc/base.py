@@ -4,7 +4,7 @@ Parity with /root/reference/bblackjax/smc/base.py:55-134, including the
 waste-free hook (``num_resampled`` < N with an update function returning N
 particles) and the log-normalizing-constant increment. The update function
 here is an **ensemble move**: it receives one key and the whole (N, d)
-particle block (TPU-first; the reference takes pre-split per-particle keys
+particle block (batched; the reference takes pre-split per-particle keys
 and a vmapped kernel).
 """
 

@@ -5,7 +5,7 @@ Two solvers:
 - ``dichotomy``  early-exit bisection in a ``lax.while_loop`` (parity with
   /root/reference/bblackjax/smc/solver.py:20-82)
 - ``bisection``  **fixed-iteration** bisection in a ``fori_loop`` — the
-  TPU-first default: a static trip count keeps the tempering update free of
+  batched default: a static trip count keeps the tempering update free of
   data-dependent control flow so it fuses into the scanned training step
   (replaces the reference's jaxopt.Bisection dependency,
   exe_flow_matching.py:400).

@@ -1,6 +1,6 @@
 """Tempered SMC over pi_lambda(x) ∝ exp(logprior + lambda * loglik).
 
-Parity with /root/reference/bblackjax/smc/tempered.py. TPU-first redesign of
+Parity with /root/reference/bblackjax/smc/tempered.py. batched redesign of
 the inner move: the reference scans ``num_mcmc_steps`` of a scalar MCMC
 kernel *per particle* under vmap (tempered.py:130-141); here the **ensemble
 kernel steps the whole particle block**, so the inner loop is a scan of

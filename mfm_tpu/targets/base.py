@@ -1,6 +1,6 @@
 """Target-density protocol.
 
-TPU-first counterpart of the reference ``Distribution`` ABC
+Batched counterpart of the reference ``Distribution`` ABC
 (/root/reference/distributions.py:8-39). Differences by design:
 
 - Targets are plain Python objects whose array state is fixed at
@@ -9,7 +9,7 @@ TPU-first counterpart of the reference ``Distribution`` ABC
   configuration such as dims/boundary conditions is static by construction).
 - Every density is **batch-first**: ``log_prob(x)`` accepts ``(d,)`` or
   ``(B, d)`` and the batched path is written with large matmuls/elementwise
-  ops that map onto the MXU/VPU, instead of relying on ``jax.vmap`` of a
+  ops, instead of relying on ``jax.vmap`` of a
   scalar-oriented function.
 - The likelihood/prior split (``log_lik`` / ``log_prior``) is kept because
   tempering schedules interpolate ``beta * log_lik + log_prior``

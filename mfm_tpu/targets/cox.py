@@ -5,7 +5,7 @@ DeepMind-derived utilities (/root/reference/distributions.py:231-314,
 /root/reference/cox_process_utils.py). Discretization follows Heng et al.
 2017 (Controlled SMC); constants from Moller et al. 1998.
 
-TPU-first redesign:
+Batched redesign:
 
 - Host-side construction (bin counts, Gram matrix, Cholesky) runs once in
   **float64 numpy** regardless of the device dtype, then is cast — at
@@ -13,7 +13,7 @@ TPU-first redesign:
   accuracy-critical step (SURVEY.md section 7 hard part (a)).
 - The per-gradient hot ops (Gram matvec, triangular solve;
   reference distributions.py:299-307) are batched: a (B, d) batch runs one
-  (d, d) @ (d, B) triangular solve / matmul at HIGHEST precision on the MXU
+  (d, d) @ (d, B) triangular solve / matmul at HIGHEST precision
   instead of B vmapped vector solves.
 - Bin counting is a vectorized scatter-add instead of the reference's
   Python point loop (cox_process_utils.py:29-56).
@@ -104,7 +104,7 @@ class LogGaussianCoxPines(Target):
         half_logdet = np.sum(np.log(np.abs(np.diag(chol64))))
         # Precision matrix, assembled in float64 then cast: the per-gradient
         # triangular solves of the reference (distributions.py:299-307) become
-        # one (B, d) @ (d, d) GEMM on the MXU — triangular solves serialize
+        # one (B, d) @ (d, d) GEMM — triangular solves serialize
         # over d=1600 steps, the dense matvec does not.
         inv_chol64 = np.linalg.solve(chol64, np.eye(dim))
         prec64 = inv_chol64.T @ inv_chol64
@@ -121,7 +121,7 @@ class LogGaussianCoxPines(Target):
 
     # ---- shared pieces -------------------------------------------------------
     def _whiten(self, latents):
-        """e = L^-1 (f - mu); batched triangular solve on the MXU
+        """e = L^-1 (f - mu); batched triangular solve
         (reference cox_process_utils.py:142-165)."""
         y = (latents - self._mu_zero)
         if y.ndim == 1:

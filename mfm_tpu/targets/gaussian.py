@@ -5,8 +5,8 @@ Capability parity with the reference ``GaussianMixture`` / ``IndepGaussian`` /
 batch-first: the mixture log-density is one ``(B, K, d)`` broadcasted
 reduction + ``logsumexp`` instead of a vmapped per-component pdf product,
 and it is evaluated in log-space (the reference exponentiates per-component
-pdfs, which underflows in f32 far from the modes — log-space keeps f32 on
-TPU viable).
+pdfs, which underflows in f32 far from the modes — log-space keeps f32
+viable).
 """
 
 from typing import Optional

@@ -1,13 +1,13 @@
 """1-D lattice phi^4 field theory target and its Gaussian base approximation.
 
 Capability parity with the reference ``PhiFour`` / ``PhiFourBase``
-(/root/reference/distributions.py:114-226). TPU-first redesign:
+(/root/reference/distributions.py:114-226). Batched redesign:
 
 - The lattice energy is written as a fused batched stencil over a (B, d)
   field batch — one pad + one elementwise pass + row reductions — rather than
   per-sample evaluation under vmap.
 - ``PhiFourBase``'s tridiagonal Gaussian uses a precomputed Cholesky factor;
-  the batched log-density is a single (B, d) @ (d, d) matmul on the MXU with
+  the batched log-density is a single (B, d) @ (d, d) matmul with
   HIGHEST precision (the quadratic form is the accuracy-critical piece in
   f32).
 """

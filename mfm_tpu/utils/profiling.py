@@ -7,6 +7,7 @@ jitted callable with compile excluded.
 """
 
 import contextlib
+import statistics
 import time
 
 import jax
@@ -22,14 +23,15 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def timed(fn, *args, repeats: int = 3, warmup: int = 1):
-    """(mean seconds, last output) of fn(*args), post-compile."""
+def timed(fn, *args, repeats: int = 5, warmup: int = 1):
+    """(median seconds per call, last output) of fn(*args), post-compile;
+    every call is fenced by ``jax.block_until_ready``."""
     out = None
     for _ in range(warmup):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    start = time.time()
+        out = jax.block_until_ready(fn(*args))
+    times = []
     for _ in range(repeats):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    return (time.time() - start) / repeats, out
+        start = time.perf_counter()
+        out = jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - start)
+    return statistics.median(times), out

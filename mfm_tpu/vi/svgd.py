@@ -4,14 +4,14 @@ Capability parity with /root/reference/bblackjax/vi/svgd.py: RBF kernel with
 median-heuristic bandwidth, optax-driven particle transport, and the
 parameter-free coin-betting variant.
 
-TPU-first redesign: the reference evaluates the Stein functional gradient
+Batched redesign: the reference evaluates the Stein functional gradient
 with nested per-particle vmaps of value_and_grad of the kernel (svgd.py:72-87).
 For the RBF kernel the whole update has a closed matrix form —
 
     phi(p_j) = [ sum_i k_ij grad_i  +  (2 / l) sum_i (p_i - p_j) k_ij ] / N
              = [ K^T G + (2 / l) (K^T P - colsum(K) * P_j) ] / N
 
-— three (N, N) x (N, d) GEMMs on the MXU, no autodiff through the kernel.
+— three (N, N) x (N, d) GEMMs, no autodiff through the kernel.
 """
 
 from typing import Any, Callable, Dict, NamedTuple

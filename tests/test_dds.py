@@ -56,9 +56,9 @@ def test_dds_trains_toward_4mode():
     # hard target (modes 8 sigma out, log pi(origin) = -66): the detached
     # score + EMA gradient-spike skip keep this stable at 2e-3 and beyond.
     # The 300-iteration trajectory is chaotic in the low-order float bits,
-    # so the final ESS is platform-dependent: ~0.53 on TPU, ~0.21 on the
-    # 8-virtual-device CPU mesh (measured; untrained level is 0.004). The
-    # threshold sits well above untrained and below both platforms.
+    # so the final ESS is platform-dependent: ~0.21 on the 8-virtual-device
+    # CPU mesh (measured; untrained level is 0.004), higher on an
+    # accelerator. The threshold sits well above untrained and below both.
     res = run_dds(target, seed=0, n_iter=300, batch_size=128, n_steps=50,
                   sigma=4.0, learning_rate=2e-3, hidden=(64, 64))
     assert jnp.isfinite(res.losses).all()

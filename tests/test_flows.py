@@ -196,6 +196,78 @@ class TestCNFLogdet:
         np.testing.assert_allclose(logdet, 0.0, atol=1e-6)
 
 
+class TestPlainJaxField:
+    """The vector field is plain JAX: a fixed parameter tree, LeCun-normal
+    kernels with zero biases, and zero heads."""
+
+    def _net(self, key, score_fn=None):
+        from mfm_tpu.flows.vector_field import VectorFieldNet
+
+        net = VectorFieldNet(
+            fourier_freqs=jax.random.normal(key, (4,)), hidden_x=(8, 6),
+            hidden_t=(5,), hidden_xt=(7,), score_fn=score_fn,
+        )
+        return net, net.init(jax.random.fold_in(key, 1), 3)
+
+    def test_param_tree_keys_and_shapes(self, key):
+        _, params = self._net(key)
+        shapes = jax.tree_util.tree_map(lambda a: a.shape, params["params"])
+        assert shapes == {
+            "t_trunk": {"Dense_0": {"kernel": (8, 5), "bias": (5,)}},
+            "x_trunk": {"Dense_0": {"kernel": (3, 8), "bias": (8,)},
+                        "Dense_1": {"kernel": (8, 6), "bias": (6,)}},
+            "xt_trunk": {"Dense_0": {"kernel": (11, 7), "bias": (7,)}},
+            "gate_head": {"kernel": (5, 3), "bias": (3,)},
+            "field_head": {"kernel": (7, 3), "bias": (3,)},
+        }
+        p = params["params"]
+        for head in ("gate_head", "field_head"):
+            assert not np.any(np.asarray(p[head]["kernel"]))
+        assert not np.any(np.asarray(p["x_trunk"]["Dense_0"]["bias"]))
+        assert np.std(np.asarray(p["x_trunk"]["Dense_1"]["kernel"])) > 0.1
+
+    def test_zero_heads_identity_with_score_gate(self, key):
+        """Both heads start at zero, so even the score-gated field is zero
+        and the flow starts as the identity."""
+        target = IndepGaussian(3, mean=2.0)
+        net, params = self._net(key, score_fn=target.score)
+        transport = make_transport(net.apply, divergence="exact", n_steps=4)
+        u = jax.random.normal(key, (5, 3))
+        x, logdet = transport.forward(params, u)
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(u))
+        np.testing.assert_array_equal(np.asarray(logdet), 0.0)
+
+    def test_single_sample_matches_batch(self, key):
+        net, params = self._net(key)
+        params = jax.tree_util.tree_map(lambda a: a + 0.3, params)
+        x = jax.random.normal(key, (4, 3))
+        batch = net.apply(params, x, jnp.full((4,), 0.25))
+        one = net.apply(params, x[2], 0.25)
+        assert one.shape == (3,)
+        np.testing.assert_allclose(one, batch[2], rtol=1e-6)
+
+    def test_matches_layer_by_layer_numpy(self, key):
+        """The apply is the reference architecture: Fourier features, t/x
+        trunks, joint trunk on their concat, field head + gate * score."""
+        target = IndepGaussian(3)
+        net, params = self._net(key, score_fn=target.score)
+        params = jax.tree_util.tree_map(
+            lambda a: a + 0.1 * jax.random.normal(key, a.shape), params
+        )
+        P = jax.tree_util.tree_map(np.asarray, params["params"])
+        x = np.asarray(jax.random.normal(key, (2, 3)))
+        t = np.array([0.2, 0.7])
+        relu = lambda h: np.maximum(h, 0.0)
+        lin = lambda l, h: h @ l["kernel"] + l["bias"]
+        ang = 2 * np.pi * t[:, None] * np.asarray(net.fourier_freqs)[None]
+        st = relu(lin(P["t_trunk"]["Dense_0"], np.concatenate([np.cos(ang), np.sin(ang)], -1)))
+        sx = relu(lin(P["x_trunk"]["Dense_1"], relu(lin(P["x_trunk"]["Dense_0"], x))))
+        j = relu(lin(P["xt_trunk"]["Dense_0"], np.concatenate([sx, st], -1)))
+        ref = lin(P["field_head"], j) + lin(P["gate_head"], st) * (-x)
+        np.testing.assert_allclose(net.apply(params, jnp.asarray(x), jnp.asarray(t)), ref,
+                                   rtol=1e-5, atol=1e-6)
+
+
 class TestFMLosses:
     def test_fm_path_endpoints(self, key):
         """At t -> 1 the path point approaches the data sample (sigma small)."""
@@ -343,8 +415,95 @@ class TestTrainState:
         assert jnp.all(jnp.isfinite(ref)) and jnp.all(jnp.isfinite(new))
         np.testing.assert_allclose(np.asarray(ref), np.asarray(new), atol=1e-5)
 
+    def test_decay_mask(self, key):
+        """Weight decay skips biases and norm scales, keeps every kernel."""
+        from mfm_tpu.flows import decay_mask
+
+        _, params = make_vector_field(
+            key, 2, hidden_x=(4,), hidden_t=(4,), hidden_xt=(4,), fourier_dim=2
+        )
+        mask = decay_mask(params)
+        assert jax.tree_util.tree_structure(mask) == jax.tree_util.tree_structure(params)
+        flat = jax.tree_util.tree_flatten_with_path(mask)[0]
+        for path, keep in flat:
+            assert keep == (path[-1].key == "kernel"), path
+        assert decay_mask({"LayerNorm_0": {"scale": jnp.ones(2)},
+                           "Dense_0": {"kernel": jnp.ones(2)}}) == {
+            "LayerNorm_0": {"scale": False}, "Dense_0": {"kernel": True}}
+
     def test_lr_schedule(self):
         fn = make_lr_schedule(100, 10, 1e-2)
         assert float(fn(0)) == 0.0
         np.testing.assert_allclose(float(fn(10)), 1e-2, rtol=1e-5)
         np.testing.assert_allclose(float(fn(100)), 0.0, atol=1e-9)
+
+
+class TestEvalTransportOverrides:
+    @pytest.mark.slow
+    def test_eval_probes_plumbed_through_driver(self, key):
+        """cfg.eval_hutchinson_probes / eval_ode_steps swap the MFMRun's
+        eval-facing transport; sampling must work and stay finite."""
+        from mfm_tpu.config import MFMConfig
+        from mfm_tpu.drivers import run_mfm, sample_flow
+        from mfm_tpu.targets import four_mode_mixture
+
+        target = four_mode_mixture()
+        cfg = MFMConfig(
+            example="4-mode", dim=2, num_chain=16, learning_iter=8,
+            chunk_size=8, hidden_x=(16,), hidden_t=(16,), hidden_xt=(16,),
+            fourier_dim=8, ode_steps=4, hutchinson=True,
+            eval_hutchinson_probes=4, eval_probe_dist="rademacher",
+            eval_ode_steps=8,
+        )
+        run = run_mfm(target, cfg)
+        flow_s, exact_s, log_w = sample_flow(run, key, 64, target)
+        assert np.isfinite(np.asarray(flow_s)).all()
+        assert np.isfinite(np.asarray(log_w)).all()
+
+
+class TestMultiProbeHutchinson:
+    def _transport(self, **kw):
+        from mfm_tpu.flows.cnf import make_transport
+
+        # linear field with known divergence: v = A x, div = tr(A)
+        A = jnp.array([[0.3, 0.8, 0.0], [-0.5, -0.1, 0.2], [0.1, 0.0, 0.4]])
+
+        def apply_fn(params, x, t):
+            return x @ A.T
+
+        return make_transport(
+            apply_fn, divergence="hutchinson", n_steps=8, **kw
+        ), float(jnp.trace(A))
+
+    @pytest.mark.slow
+    def test_probes_reduce_logdet_variance(self, key):
+        t1, tr = self._transport(num_probes=1)
+        t16, _ = self._transport(num_probes=16)
+        u = jax.random.normal(key, (64, 3))
+
+        def spread(transport, seed0):
+            outs = [
+                transport.forward({}, u, jax.random.PRNGKey(s))[1]
+                for s in range(seed0, seed0 + 8)
+            ]
+            return float(jnp.std(jnp.stack(outs), axis=0).mean())
+
+        s1, s16 = spread(t1, 0), spread(t16, 100)
+        assert s16 < s1 / 2.0, (s1, s16)
+        # unbiased: mean over keys near the exact logdet tr(A) * 1
+        ld = jnp.stack(
+            [t16.forward({}, u, jax.random.PRNGKey(s))[1] for s in range(8)]
+        )
+        np.testing.assert_allclose(float(ld.mean()), tr, rtol=0.1)
+
+    @pytest.mark.slow
+    def test_rademacher_exact_for_linear_field(self, key):
+        """For a linear field, rademacher probes give eps^T A eps whose
+        expectation is tr(A); with many probes the estimate tightens."""
+        t_rad, tr = self._transport(num_probes=32, probe_dist="rademacher")
+        u = jax.random.normal(key, (32, 3))
+        _, ld = t_rad.forward({}, u, jax.random.PRNGKey(3))
+        # per-sample estimates are noisy (the probe is shared across ODE
+        # stages); the population mean must sit on tr(A)
+        np.testing.assert_allclose(float(np.mean(ld)), tr, rtol=0.1)
+        assert float(np.std(ld)) < 0.2

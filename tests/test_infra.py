@@ -351,7 +351,7 @@ class TestNewExamplesCLI:
 
 class TestHostChunkedScan:
     """host_chunked_scan must be bit-identical to one lax.scan call — it
-    exists purely to bound single-XLA-execution length (WEDGE_LOG.jsonl)."""
+    exists purely to bound single-XLA-execution length."""
 
     def _fn(self):
         @jax.jit

@@ -1,13 +1,21 @@
-"""Pallas pairwise kernels (interpret mode on CPU) vs the pure-JAX tiled
-implementations."""
+"""Pairwise Pallas kernels (Triton route) in interpret mode on the CPU
+against the pure-JAX tiled implementations, plus the compiled route's
+guard and its lowering for CUDA."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
+import mfm_tpu.ops.pairwise_pallas as pp
 from mfm_tpu.diagnostics import max_mean_disc, stein_disc
-from mfm_tpu.ops import max_mean_disc_pallas, stein_disc_pallas
+from mfm_tpu.ops import max_mean_disc_pallas, rbf_kernel_sum, stein_disc_pallas
+from mfm_tpu.ops import stein_pairwise_sum
 from mfm_tpu.targets import four_mode_mixture
+
+
+def _neg(x):
+    return -x
 
 
 class TestPallasPairwise:
@@ -15,7 +23,7 @@ class TestPallasPairwise:
         target = four_mode_mixture()
         X = jax.random.normal(key, (70, 2)) * 4
         u_ref, v_ref = stein_disc(X, target.score, tile=32)
-        u_pl, v_pl = stein_disc_pallas(X, target.score, tile=32)
+        u_pl, v_pl = stein_disc_pallas(X, target.score, interpret=True)
         np.testing.assert_allclose(float(u_pl), float(u_ref), rtol=2e-4)
         np.testing.assert_allclose(float(v_pl), float(v_ref), rtol=2e-4)
 
@@ -23,29 +31,41 @@ class TestPallasPairwise:
         X = jax.random.normal(key, (50, 3))
         Y = jax.random.normal(jax.random.fold_in(key, 1), (50, 3)) + 1
         ref = max_mean_disc(X, Y, tile=16)
-        got = max_mean_disc_pallas(X, Y, tile=32)
+        got = max_mean_disc_pallas(X, Y, interpret=True)
         np.testing.assert_allclose(float(got), float(ref), rtol=2e-4, atol=1e-6)
 
+    # T is never a multiple of the 64-row cell, and d=3 pads to 16 columns
+    @pytest.mark.parametrize("d, T", [(2, 70), (3, 100), (64, 130)])
+    def test_stein_total_matches_xla(self, key, d, T):
+        X = 2.0 * jax.random.normal(jax.random.fold_in(key, d), (T, d))
+        total = stein_pairwise_sum(X, -X, interpret=True)
+        ref = stein_disc(X, _neg)[1] * T * T  # V-statistic = total / T^2
+        np.testing.assert_allclose(float(total), float(ref), rtol=1e-4)
 
-class TestPhiFourPallas:
-    def test_matches_target_dirichlet(self, key):
-        from mfm_tpu.ops import phi_four_log_lik
-        from mfm_tpu.targets import PhiFour
+    @pytest.mark.parametrize("na, nb", [(70, 150), (129, 20)])
+    def test_rbf_sum_unequal_sizes(self, key, na, nb):
+        A = jax.random.normal(key, (na, 3))
+        B = 0.5 + jax.random.normal(jax.random.fold_in(key, 1), (nb, 3))
+        got = rbf_kernel_sum(A, B, sigma2=2.0, interpret=True)
+        r = jnp.sum((A[:, None, :] - B[None, :, :]) ** 2, axis=-1)
+        ref = jnp.sum(jnp.exp(-r / 4.0))
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
 
-        pf = PhiFour(64)
-        x = jax.random.normal(key, (37, 64))  # non-multiple of tile
-        got = phi_four_log_lik(x, tile=256)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(pf.log_lik(x)), rtol=2e-4
-        )
+    def test_compiled_route_raises_off_gpu(self, key):
+        X = jax.random.normal(key, (33, 2))
+        with pytest.raises(RuntimeError, match="GPU only"):
+            stein_pairwise_sum(X, X)
+        with pytest.raises(RuntimeError, match="GPU only"):
+            rbf_kernel_sum(X, X)
 
-    def test_matches_target_pbc(self, key):
-        from mfm_tpu.ops import phi_four_log_lik
-        from mfm_tpu.targets import PhiFour
-
-        pf = PhiFour(32, bc=("pbc", 0.0))
-        x = jax.random.normal(key, (16, 32))
-        got = phi_four_log_lik(x, pbc=True, tile=256)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(pf.log_lik(x)), rtol=2e-4
-        )
+    @pytest.mark.parametrize("d", [2, 1600])
+    def test_lowers_to_triton_for_cuda(self, monkeypatch, d):
+        """The compiled route lowers through Pallas-Triton for CUDA without
+        a GPU present (what the GPU's compiler then does shows only there)."""
+        monkeypatch.setattr(pp.jax, "default_backend", lambda: "gpu")
+        X = jax.ShapeDtypeStruct((200 + d, d), jnp.float32)
+        for fn in (stein_pairwise_sum, rbf_kernel_sum):
+            lowered = jax.jit(lambda a, b: fn(a, b)).trace(X, X).lower(
+                lowering_platforms=("cuda",)
+            )
+            assert "triton" in lowered.as_text()

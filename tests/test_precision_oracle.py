@@ -1,6 +1,7 @@
 """f32 vs float64-oracle tolerance checks (SURVEY.md section 7 hard part (a)).
 
-The reference runs everything in x64 (multi_modal.py:14); TPUs are f32-first.
+The reference runs everything in x64 (multi_modal.py:14); accelerators are
+f32-first.
 These tests pin the f32 implementations against the same computation run
 under the x64 context on CPU: MALA acceptance probabilities, CNF logdets,
 and the LGCP density must agree to tolerances that keep MH decisions and IS

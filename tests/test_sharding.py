@@ -94,11 +94,11 @@ class TestShardedMFMStep:
 
     @pytest.mark.slow
     def test_graft_dryrun_subprocess_hostile_platform(self):
-        """Regression for MULTICHIP_r01: the driver runs dryrun_multichip in
-        a FRESH process whose environment presets a (possibly broken) TPU
-        platform. The entry must force the virtual CPU mesh itself; any
-        module-level jnp.* constant in mfm_tpu would initialize the hostile
-        backend at import time and fail before it can."""
+        """dryrun_multichip runs in a FRESH process whose environment may
+        preset a (possibly broken) accelerator platform. The entry must
+        force the virtual CPU mesh itself; any module-level jnp.* constant
+        in mfm_tpu would initialize the hostile backend at import time and
+        fail before it can."""
         import os
         import subprocess
         import sys
