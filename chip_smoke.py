@@ -6,8 +6,7 @@
 Phases (one JSON line each, in order): the device; MFM training, final IS
 sampling and the metric row on pines (d=1600) and phi-four (d=64) at their
 preset widths, and on 4-mode at the reference's 12,800-sample eval size;
-the pairwise Pallas kernel against its XLA reference at T = 12,800; the
-pines target and the pines-width CNF transport against the same
+the pines target and the pines-width CNF transport against the same
 computation on the host CPU. ``--four-gpus`` instead runs phi-four with its
 chain ensemble sharded over four cards against the same step on one card,
 the distributed systematic resampler against the single-device one, and
@@ -67,11 +66,6 @@ def _finite_floats(metrics: dict) -> dict:
     return floats
 
 
-def _neg(x):
-    """Score of the standard normal: the kernel phase's synthetic target."""
-    return -x
-
-
 def phase_device(cache_dir: str) -> None:
     import jax
 
@@ -129,7 +123,7 @@ def run_example(example: str, phase: str, **overrides):
         learning_iter=cfg.learning_iter, field_precision=cfg.field_precision,
         flow_steps=int(is_flow.sum()), mala_acceptance=mala_acc,
         flow_acceptance=flow_acc, final_loss=float(loss[-1]),
-        metrics=_finite_floats(metrics), metrics_kernel=metrics["metrics_kernel"],
+        metrics=_finite_floats(metrics),
         iters_per_s=cfg.learning_iter / run.train_time,
         train_time_s=run.train_time, train_wall_incl_compile_s=wall_train,
         eval_wall_incl_compile_s=wall_eval, n_eval=n_eval, card=card(),
@@ -141,7 +135,9 @@ def phase_phi_four_field(run, cfg, target) -> None:
     """What XLA makes of the phi-four field at the preset's 1024 chains:
     one RK4 stage's field work (the apply plus the exact divergence, d
     scanned x-JVPs), against one flow step and one MALA step of the MFM
-    loop. A flow-MH step runs two transports of ode_steps x 4 stages."""
+    loop. A flow-MH step runs two transports of ode_steps x 4 stages. The
+    stage is timed on its own and pays a dispatch that the scanned step
+    does not, so the field shares are upper estimates."""
     import jax
     import jax.numpy as jnp
 
@@ -176,89 +172,11 @@ def phase_phi_four_field(run, cfg, target) -> None:
     )
 
 
-def phase_four_mode(kernel_expected: str) -> None:
-    from mfm_tpu.drivers import evaluate_samples
-    from mfm_tpu.utils.profiling import timed
-
-    run, cfg, target, (flow, exact, real), metrics = run_example(
-        "4-mode", "four_mode"
-    )
+def phase_four_mode() -> None:
+    """4-mode at the reference's eval size, its metric row on the XLA tiles."""
+    _, _, _, (flow, _, _), _ = run_example("4-mode", "four_mode")
     if flow.shape[0] != T_EVAL:
         raise AssertionError(f"4-mode eval size {flow.shape[0]} != {T_EVAL}")
-    if metrics["metrics_kernel"] != kernel_expected:
-        raise AssertionError(
-            f"4-mode metrics_kernel {metrics['metrics_kernel']!r}, "
-            f"expected {kernel_expected!r}"
-        )
-    times = {}
-    for name, pallas in (("xla", False), ("pallas", True)):
-        times[name], _ = timed(
-            lambda: evaluate_samples(target, flow, exact, real, pallas_metrics=pallas)
-        )
-    emit(
-        "four_mode_eval", T=T_EVAL, eval_xla_ms=times["xla"] * 1e3,
-        eval_pallas_ms=times["pallas"] * 1e3,
-        speedup=times["xla"] / times["pallas"], card=card(),
-    )
-
-
-def phase_kernels() -> None:
-    """Fused pairwise kernel vs the XLA tiles at the eval size: raw totals
-    to rtol 1e-4 (1e-3 at d=1600, longer dots summed in another order),
-    reported U/V/MMD to 1e-3 absolute, and the time of each."""
-    import jax
-    import jax.numpy as jnp
-
-    from mfm_tpu.diagnostics import max_mean_disc, stein_disc
-    from mfm_tpu.ops import (
-        max_mean_disc_pallas,
-        rbf_kernel_sum,
-        stein_disc_pallas,
-        stein_pairwise_sum,
-    )
-    from mfm_tpu.utils.profiling import timed
-
-    key = jax.random.PRNGKey(11)
-    stein_x = jax.jit(lambda X: stein_disc(X, _neg))
-    stein_k = jax.jit(lambda X: stein_disc_pallas(X, _neg))
-    mmd_x = jax.jit(max_mean_disc)
-    mmd_k = jax.jit(max_mean_disc_pallas)
-
-    @jax.jit
-    def rbf_ref(a, b):  # plain all-pairs sum, the raw total's reference
-        sq = jnp.sum(a * a, 1)[:, None] + jnp.sum(b * b, 1)[None, :]
-        ab = jnp.dot(a, b.T, precision=jax.lax.Precision.HIGHEST)
-        return jnp.sum(jnp.exp(-0.5 * jnp.maximum(sq - 2.0 * ab, 0.0)))
-    for d in (2, 32, 64, 1600):
-        X = jax.random.normal(jax.random.fold_in(key, d), (T_EVAL, d))
-        # MMD sets scaled to pairwise distances of order one, so the RBF
-        # sums stay away from underflow at every d
-        scale = 1.5 / np.sqrt(d)
-        Xm = scale * X
-        Ym = scale * (0.3 + jax.random.normal(jax.random.fold_in(key, d + 1), (T_EVAL, d)))
-        rtol = 1e-3 if d >= 1024 else 1e-4
-        total_k = float(stein_pairwise_sum(X, -X))
-        total_x = float(stein_x(X)[1]) * T_EVAL * T_EVAL
-        rbf_k = float(rbf_kernel_sum(Xm, Ym))
-        rbf_x = float(rbf_ref(Xm, Ym))
-        (u_x, v_x), (u_k, v_k) = stein_x(X), stein_k(X)
-        m_x, m_k = float(mmd_x(Xm, Ym)), float(mmd_k(Xm, Ym))
-        rec = {
-            "d": d, "stein_total_rel_err": abs(total_k - total_x) / abs(total_x),
-            "rbf_total_rel_err": abs(rbf_k - rbf_x) / abs(rbf_x),
-            "u_abs_err": abs(float(u_k) - float(u_x)),
-            "v_abs_err": abs(float(v_k) - float(v_x)),
-            "mmd_abs_err": abs(m_k - m_x), "u_xla": float(u_x), "mmd_xla": m_x,
-        }
-        if max(rec["stein_total_rel_err"], rec["rbf_total_rel_err"]) > rtol:
-            raise AssertionError(f"stein total off at d={d}: {rec}")
-        if max(rec["u_abs_err"], rec["v_abs_err"], rec["mmd_abs_err"]) > 1e-3:
-            raise AssertionError(f"U/V/MMD off at d={d}: {rec}")
-        rec["stein_xla_ms"] = timed(stein_x, X)[0] * 1e3
-        rec["stein_pallas_ms"] = timed(stein_k, X)[0] * 1e3
-        rec["mmd_xla_ms"] = timed(mmd_x, Xm, Ym)[0] * 1e3
-        rec["mmd_pallas_ms"] = timed(mmd_k, Xm, Ym)[0] * 1e3
-        emit("pairwise_kernel", T=T_EVAL, card=card(), **rec)
 
 
 def phase_numerics() -> None:
@@ -349,7 +267,6 @@ def phase_four_gpus(n_chain: int = 4096, n_iter: int = 200,
     the distributed systematic resampler; flow-annealed SMC under the mesh."""
     import jax
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from mfm_tpu.cli import make_target
     from mfm_tpu.config import preset
@@ -357,8 +274,6 @@ def phase_four_gpus(n_chain: int = 4096, n_iter: int = 200,
     from mfm_tpu.drivers.flow_smc import run_flow_smc
     from mfm_tpu.drivers.mfm import build_mfm, keep_chains_sharded
     from mfm_tpu.parallel import make_mesh, replicate, shard_chains
-    from mfm_tpu.smc.distributed import distributed_systematic
-    from mfm_tpu.smc.resampling import systematic
 
     devices = jax.devices()[:4]
     target = make_target("phi-four")
@@ -443,35 +358,7 @@ def phase_four_gpus(n_chain: int = 4096, n_iter: int = 200,
     emit("four_gpu_run", learning_iter=n_iter, num_chain=n_chain,
          iters_per_s=n_iter / run.train_time, final_loss=float(loss[-1]), card=card())
 
-    mesh1 = make_mesh((4,), ("chains",), devices)
-    k_w, k_r = jax.random.split(jax.random.PRNGKey(2))
-    w = jax.nn.softmax(2.0 * jax.random.normal(k_w, (n_particles,)))
-    ref = np.asarray(jax.jit(lambda k, w: systematic(k, w, n_particles))(k_r, w))
-    w_s = jax.device_put(w, NamedSharding(mesh1, P("chains")))
-    got = np.asarray(jax.jit(
-        lambda k, w: distributed_systematic(k, w, n_particles, mesh1)
-    )(k_r, w_s))
-    diff = ref != got
-    # Both are f32 systematic resamples of the same weights, bracketed in
-    # another order. Where a grid point falls within the f32 rounding of
-    # the cumulative weights, the two may pick different ancestors, and
-    # they differ by as many positions as there are particles whose whole
-    # weight lies inside that rounding. Any other difference is a fault.
-    c64 = np.cumsum(np.asarray(w, np.float64))
-    rounding = float(np.max(np.abs(np.asarray(jax.jit(jnp.cumsum)(w)) - c64)))
-    lo, hi = np.minimum(ref, got)[diff], np.maximum(ref, got)[diff]
-    between = c64[hi - 1] - c64[lo]  # weight strictly between the two
-    if diff.mean() > 0.01 or (between > 4.0 * rounding).any():
-        raise AssertionError(
-            f"distributed resampler: {diff.mean():.4%} of slots differ, "
-            f"weight between differing ancestors up to {between.max():.3g} "
-            f"against cumulative-sum rounding {rounding:.3g}"
-        )
-    emit("four_gpu_resample", n_particles=n_particles,
-         slots_differing=int(diff.sum()), fraction=float(diff.mean()),
-         largest_index_difference=int(np.abs(ref - got).max()),
-         cumsum_rounding=rounding,
-         largest_weight_between=float(between.max()) if diff.any() else 0.0)
+    emit("four_gpu_resample", **check_distributed_resampler(devices, n_particles))
 
     params = replicate(run.train.params, mesh)
     with mesh:
@@ -485,6 +372,63 @@ def phase_four_gpus(n_chain: int = 4096, n_iter: int = 200,
         raise AssertionError(f"flow-SMC under the mesh: log_z {res.log_z}")
     emit("four_gpu_flow_smc", log_z=float(res.log_z), lmbda=float(res.lmbda),
          n_particles=n_chain)
+
+
+def check_distributed_resampler(devices, n_particles: int) -> dict:
+    """The distributed systematic resampler over ``devices`` against the
+    single-device one, on the same f32 weights and uniform.
+
+    The two bracket the cumulative weights in another order: one global
+    cumulative sum, or per-shard sums plus sequential shard offsets. A slot
+    whose grid point lies within both sums' rounding may take another
+    ancestor, and the two ancestors then lie as far apart as there are
+    particles whose whole weight fits in that rounding. Each bracket is off
+    the exact cumulative weight by at most its own sum's rounding, so the
+    weight strictly between the two ancestors is at most the two roundings
+    added. Any larger difference is a fault."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from mfm_tpu.parallel import make_mesh
+    from mfm_tpu.smc.distributed import distributed_systematic
+    from mfm_tpu.smc.resampling import systematic
+
+    n_shards = len(devices)
+    mesh = make_mesh((n_shards,), ("chains",), devices)
+    k_w, k_r = jax.random.split(jax.random.PRNGKey(2))
+    w = jax.nn.softmax(2.0 * jax.random.normal(k_w, (n_particles,)))
+    ref = np.asarray(jax.jit(lambda k, w: systematic(k, w, n_particles))(k_r, w))
+    w_s = jax.device_put(w, NamedSharding(mesh, P("chains")))
+    got = np.asarray(jax.jit(
+        lambda k, w: distributed_systematic(k, w, n_particles, mesh)
+    )(k_r, w_s))
+    diff = ref != got
+
+    c64 = np.cumsum(np.asarray(w, np.float64))
+    c_one = np.asarray(jax.jit(jnp.cumsum)(w))
+    c_shard = np.asarray(jax.jit(lambda w: jnp.cumsum(w.reshape(n_shards, -1), 1))(w))
+    offsets = np.zeros(n_shards, np.float32)
+    for s in range(1, n_shards):  # f32, in the resampler's sequential order
+        offsets[s] = offsets[s - 1] + c_shard[s - 1, -1]
+    c_dist = (offsets[:, None] + c_shard).ravel()
+    rounding = (float(np.max(np.abs(c_one - c64)))
+                + float(np.max(np.abs(c_dist - c64))))
+    lo, hi = np.minimum(ref, got)[diff], np.maximum(ref, got)[diff]
+    between = c64[hi - 1] - c64[lo]  # weight strictly between the two
+    if diff.mean() > 0.01 or (between > rounding).any():
+        raise AssertionError(
+            f"distributed resampler: {diff.mean():.4%} of slots differ, "
+            f"weight between differing ancestors up to {between.max():.3g} "
+            f"against cumulative-sum rounding {rounding:.3g}"
+        )
+    return dict(
+        n_particles=n_particles, shards=n_shards,
+        slots_differing=int(diff.sum()), fraction=float(diff.mean()),
+        largest_index_difference=int(np.abs(ref - got).max()),
+        cumsum_rounding=rounding,
+        largest_weight_between=float(between.max()) if diff.any() else 0.0,
+    )
 
 
 def main(argv=None) -> None:
@@ -513,8 +457,7 @@ def main(argv=None) -> None:
             "phi-four", "phi_four_highest", learning_iter=300,
             mcmc_per_flow_steps=100.0, field_precision="highest",
         )
-        phase_four_mode(kernel_expected="pallas")
-        phase_kernels()
+        phase_four_mode()
         phase_numerics()
     dev = jax.devices()[0]
     for line in card():

@@ -1,6 +1,6 @@
 """mfm_tpu: a Markovian Flow Matching framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``albcab/mfm`` repository (MFM: Accelerating MCMC with Continuous Normalizing
 Flows). Everything is built batch-first for an accelerator, runs training loops
 on-device with ``lax.scan``, and scales chain ensembles over a
@@ -16,7 +16,6 @@ Layout
 - ``adaptation``   cross-chain / ensemble-chain adaptation loops (ATESS, MSC)
 - ``vi``           SVGD + coin-SVGD, COCOB optimizer
 - ``sbi``          simulation-based inference scaffolding (SNPE-A)
-- ``ops``          Pallas (Triton) GPU kernel for the pairwise metrics
 - ``diagnostics``  Stein discrepancy, MMD, autocorrelation, ESS
 - ``parallel``     mesh / sharding utilities
 - ``drivers``      end-to-end orchestrators (MFM training, SMC runs, eval)

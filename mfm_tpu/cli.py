@@ -149,10 +149,7 @@ def run_one(target, cfg, args):
 
         log.summary(check_floor(target, real_samples))
 
-    metrics = evaluate_samples(
-        target, flow_samples, exact_samples, real_samples,
-        pallas_metrics=getattr(args, "pallas_metrics", None),
-    )
+    metrics = evaluate_samples(target, flow_samples, exact_samples, real_samples)
     metrics["train_time"] = train_time
     log.summary(metrics)
     if getattr(args, "plots", False):
@@ -267,12 +264,6 @@ def main(argv=None):
                    help="after IS resampling, run N self-tuning MALA moves on "
                         "the exact target (repairs IS degeneracy at high dim; "
                         "pines d=1600: KSD-U 2813 -> 0.048 at N=100)")
-    p.add_argument("--pallas-metrics", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="evaluate KSD/MMD with the fused Pallas pairwise "
-                        "kernel (GPU only; see drivers/eval). Default: "
-                        "auto — ON on a GPU below d=1024, OFF elsewhere; "
-                        "--no-pallas-metrics forces the XLA path")
     p.add_argument("--plots", action="store_true",
                    help="save the reference's end-of-run figure set (pair "
                         "scatters, phi-four fields, 2-D flow progression) "

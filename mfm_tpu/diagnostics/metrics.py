@@ -14,8 +14,7 @@ GEMMs —
     sx.sy              = one score Gram
 
 — so the hot loop is five matmuls per row tile plus fused elementwise math,
-and memory stays bounded at tile x T. The fused Pallas kernel in ``mfm_tpu.ops``
-computes the same sums in parallel tiles on a GPU.
+and memory stays bounded at tile x T.
 """
 
 from functools import partial

@@ -22,45 +22,20 @@ def evaluate_samples(
     exact_samples: jax.Array,
     real_samples: Optional[jax.Array] = None,
     log_weights: Optional[jax.Array] = None,
-    pallas_metrics: Optional[bool] = None,
 ) -> dict:
     """Compute the reference metric row for one run.
 
     ``log_weights`` (optional, per flow sample): adds importance-WEIGHTED
     Stein statistics of the flow samples — the duplication-free view of the
     IS-corrected distribution (new capability; see diagnostics.stein_disc).
-
-    ``pallas_metrics``: evaluate KSD/MMD with the fused Pallas pairwise
-    kernels (``mfm_tpu.ops``, Triton route) instead of the XLA tiles.
-    ``None`` (default) picks the kernel exactly when the default backend is
-    a GPU and the dimension is below 1024. Below that width the kernel is
-    the faster path on an H100 at the 12,800-sample eval size; at d=1600
-    it agrees with XLA (KSD within 1e-4) but runs slower, its full-f32 dots
-    on the CUDA cores losing to cuBLAS, so XLA keeps d >= 1024. The kernel
-    compiles for the GPU only, so ``True`` on another backend raises. The
-    weighted-Stein variant always uses the XLA path. Every row records
-    which path produced it (``metrics_kernel``).
     """
-    if pallas_metrics is None:
-        pallas_metrics = (
-            jax.default_backend() == "gpu" and flow_samples.shape[-1] < 1024
-        )
-    if pallas_metrics:
-        from mfm_tpu.ops.pairwise_pallas import (
-            max_mean_disc_pallas as mmd_fn,
-            stein_disc_pallas as stein_fn,
-        )
-    else:
-        stein_fn, mmd_fn = stein_disc, max_mean_disc
-
     out = {}
-    out["metrics_kernel"] = "pallas" if pallas_metrics else "xla"
     out["logpdf"] = float(jnp.mean(target.log_prob(flow_samples)))
-    u, v = stein_fn(flow_samples, target.score)
+    u, v = stein_disc(flow_samples, target.score)
     out["stein_u"], out["stein_v"] = float(u), float(v)
 
     out["logpdf_star"] = float(jnp.mean(target.log_prob(exact_samples)))
-    u_, v_ = stein_fn(exact_samples, target.score)
+    u_, v_ = stein_disc(exact_samples, target.score)
     out["stein_u_star"], out["stein_v_star"] = float(u_), float(v_)
 
     if log_weights is not None:
@@ -69,8 +44,8 @@ def evaluate_samples(
         out["stein_u_weighted"], out["stein_v_weighted"] = float(uw), float(vw)
 
     if real_samples is not None:
-        out["mmd"] = float(mmd_fn(real_samples, flow_samples))
-        out["mmd_star"] = float(mmd_fn(real_samples, exact_samples))
+        out["mmd"] = float(max_mean_disc(real_samples, flow_samples))
+        out["mmd_star"] = float(max_mean_disc(real_samples, exact_samples))
     else:
         out["mmd"] = out["mmd_star"] = 0.0
     return out

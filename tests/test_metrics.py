@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mfm_tpu.diagnostics import (
     autocorrelation,
@@ -33,6 +34,10 @@ def _naive_stein(X, score_fn, beta=-0.5):
     return (total - diag) / (T * (T - 1)), total / T**2
 
 
+def _neg(x):
+    return -x
+
+
 def _naive_mmd(X, Y, sigma2=1.0):
     X = np.asarray(X, np.float64)
     Y = np.asarray(Y, np.float64)
@@ -58,6 +63,15 @@ class TestStein:
         np.testing.assert_allclose(u, u_ref, rtol=1e-3)
         np.testing.assert_allclose(v, v_ref, rtol=1e-3)
 
+    # T is never a multiple of the tile; at d=64 the Gram GEMMs carry the sums
+    @pytest.mark.parametrize("d, T", [(2, 70), (3, 45), (64, 70)])
+    def test_matches_naive_across_widths(self, key, d, T):
+        X = 2.0 * jax.random.normal(jax.random.fold_in(key, d), (T, d))
+        u, v = stein_disc(X, _neg, tile=32)
+        u_ref, v_ref = _naive_stein(X, _neg)
+        np.testing.assert_allclose(u, u_ref, rtol=1e-3)
+        np.testing.assert_allclose(v, v_ref, rtol=1e-3)
+
     def test_exact_samples_small(self, key):
         """KSD of exact target samples should be near zero; of wrong samples
         should be clearly larger."""
@@ -76,6 +90,16 @@ class TestMMD:
         Y = jax.random.normal(jax.random.fold_in(key, 1), (41, 3)) + 0.5
         got = max_mean_disc(X, Y, tile=16)
         np.testing.assert_allclose(got, _naive_mmd(X, Y), rtol=1e-3, atol=1e-5)
+
+    @pytest.mark.parametrize("d, T", [(3, 50), (64, 45)])
+    def test_matches_naive_across_widths(self, key, d, T):
+        scale = 1.5 / np.sqrt(d)  # pairwise distances of order one at every d
+        X = scale * jax.random.normal(key, (T, d))
+        Y = scale * (0.3 + jax.random.normal(jax.random.fold_in(key, 1), (T, d)))
+        got = max_mean_disc(X, Y, sigma2=2.0, tile=16)
+        np.testing.assert_allclose(
+            got, _naive_mmd(X, Y, sigma2=2.0), rtol=1e-3, atol=1e-5
+        )
 
     def test_identical_distributions_near_zero(self, key):
         X = jax.random.normal(key, (400, 2))
